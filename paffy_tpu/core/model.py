@@ -1,6 +1,6 @@
 """Columnar (SoA) data model for PAF records.
 
-This is the TPU-native replacement for the reference's per-record heap structs
+This is the device-friendly replacement for the reference's per-record heap structs
 (``Paf``/``Cigar`` in ``inc/paf.h:52-109``).  Instead of a linked structure per
 record, a whole batch of PAF records is held as parallel numpy arrays plus a
 single CSR (compressed sparse row) cigar store: all cigar operations of all

@@ -2,7 +2,7 @@
 //
 // The reference's parser is a hand-rolled byte scanner precisely because
 // ingest is the hot host path (impl/paf.c:10-48,137-209); this module plays
-// that role for the TPU engine, producing the columnar SoA/CSR arrays that
+// that role for the JAX engine, producing the columnar SoA/CSR arrays that
 // ship straight to the device, and serializing them back byte-identically
 // (tag rules of impl/paf.c:317-389).
 //
@@ -832,7 +832,7 @@ long long view_stats_lines(long long n_records,
 // ------------------------------------------------- CPU column compare loop
 // Reference-style per-base mismatch counting (the inner loop of
 // paf_encode_mismatches, impl/paf.c:754-768) over the flat M-run arrays —
-// the single-threaded C comparison point for the TPU kernel benchmark.
+// the single-threaded C comparison point for the device kernels.
 
 static unsigned char UPPER_TBL[256];
 static unsigned char COMP_TBL[256];
@@ -1873,8 +1873,8 @@ void tile_sweep(long long n_order, const long long* order,
 }
 
 // Threaded per-record column counts — the PRODUCTION counts path when the
-// router predicts the host beats the device end-to-end (upload-bound
-// tunnels, see ops/mismatch._device_counts_predicted_faster).  Shards the
+// router predicts the host beats the device end-to-end (see
+// ops/mismatch.device_counts_predicted_faster).  Shards the
 // mop range column-balanced; each thread accumulates into a private
 // [n_records] pair and the partials sum afterwards (integer adds — result
 // identical to the sequential pass).  column_compare_counts above stays

@@ -35,9 +35,10 @@ percentage_to_trim, '-' strand query coordinates mirrored to negative space,
 each strand set chained separately (chain_id counter shared), then mirrored
 back, un-trimmed, checked, and stably sorted by descending score.
 
-The per-group DP runs as a ``lax.scan`` on device for large groups (vector
-candidate masks per step) and as a numpy sweep for small ones — identical
-semantics, verified against each other in tests.
+The per-group DP runs as a native windowed sweep (numpy oracle without a
+toolchain); under a mesh it runs as a ``lax.scan`` on device (vector
+candidate masks per step) — identical semantics, verified against each
+other in tests.
 """
 
 from __future__ import annotations
@@ -54,16 +55,13 @@ from paffy_tpu.ops.segments import bucket_size
 _NEG = np.int64(-(1 << 62))
 
 # Group size at which the device lax.scan DP would take over from the host
-# windowed sweep.  Pinned to "never" BY MEASUREMENT, not as a placeholder:
-# the round-4 fair fight (bench_chain_kernel_only — device-RESIDENT group
-# arrays, 8 executions per dispatch, int32 recurrence) measured the scan at
-# 4.8x the native host DP kernel-only (1114 ms vs 230 ms on the 92-group
-# shattered golden), because each scan step does rectangular w_pad-wide
-# work through serialized dynamic slices while the host sweep does
-# O(actual window) work.  t_dev = 4.8*t_host + transfer + dispatch has no
-# winning regime while a host core exists (docs/PERF_NOTES.md 2026-08-20).
-# The scan kernel remains the multichip sharded-pipeline route
-# (group-per-device under a mesh) and the no-toolchain fallback.
+# windowed sweep: "never", by measurement.  On an NVIDIA H100 (400 W limit)
+# the shattered golden workload's two groups (128,472 and 56,481 records)
+# took 2.49 s + 1.25 s as device-resident int64 scans (2.17 s + 1.08 s in
+# int32) against 0.31 s for the native DP over both (chip_smoke.py): each
+# scan step is a few dependent kernels over a w_pad-wide window, while the
+# host sweep does O(actual window) work per record.  The scan kernel
+# remains the sharded pipeline's route (group-per-device under a mesh).
 DEVICE_GROUP_THRESHOLD = 1 << 40
 
 

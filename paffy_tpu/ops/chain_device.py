@@ -35,9 +35,8 @@ def _dp_scan(qs, ts, score, qe_s, te_s, idx_s, lo, w, pos,
     slot in qend order (where its chain score is scattered).
 
     The DP dtype follows qs.dtype: int32 inputs run the whole recurrence in
-    int32 (int64 is u32-pair emulated on TPU; the int32 form measured ~2x
-    the int64 scan, bench r4).  Values must fit: coords, scores, and chain
-    totals < 2^31 (the int32 router checks this).
+    int32 (half the bytes per step).  Values must fit: coords, scores, and
+    chain totals < 2^31.
     """
     dt = qs.dtype
     neg = _NEG if dt == jnp.int64 else jnp.asarray(
@@ -129,9 +128,7 @@ def build_bucket_args(groups, max_gap, dtype=np.int64):
 
     Returns (args, n_pad, w_pad) with args the 9 [G, n_pad(+w_pad)] arrays
     of _dp_scan_groups in ``dtype``.  int32 is valid when every coordinate,
-    score, and possible chain total fits in int31 (the bench and the
-    multichip pipeline use it — the int64 scan is u32-pair emulated on TPU
-    and measured ~2x slower)."""
+    score, and possible chain total fits in int31."""
     n_pad = bucket_size(max(len(g[0]) for g in groups))
     all_lo, all_w, all_orders = [], [], []
     for qs, qe, ts, te, score in groups:

@@ -20,8 +20,8 @@ from paffy_tpu.ops.segments import columns_to_ops  # noqa: E402
 
 
 def device_upper(c):
-    """toupper as arithmetic (a 256-entry table gather with ~1e8 u8 indices
-    serializes on TPU — measured 8.5s/call; this select runs at VPU speed)."""
+    """toupper as arithmetic: one fused elementwise select instead of a
+    256-entry table gather per byte."""
     return jnp.where((c >= 97) & (c <= 122), c - 32, c)
 
 
@@ -51,9 +51,7 @@ def build_ext_pool(pool):
     and reduce to a PURE byte equality: case folding is pre-applied to both
     halves, and a reverse-complement query walk from pool position s is an
     ascending plain read at ext[2L-1-s] — eliminating the flip, complement,
-    and case-fold elementwise passes that otherwise dominate kernel time
-    (measured: the compare math, not the gathers, was ~60% of the tiled
-    kernel before this).
+    and case-fold elementwise passes from every compare.
     """
     up = device_upper(pool)
     return jnp.concatenate([up, device_comp_upper(jnp.flip(up))])
@@ -86,9 +84,8 @@ def _column_match_counts(pool, lens, qpos0, tpos0, rev, col_off, rec_col_off,
     """Fused: per-record (match, mismatch) column counts over all M runs.
 
     Columns are laid out in record order, so the per-record reduction is a
-    cumsum + gather at the record column boundaries (rec_col_off) — scatter
-    segment-sums with ~1e8 update elements serialize on TPU and must not be
-    used here.
+    cumsum + gather at the record column boundaries (rec_col_off), with no
+    scatter.
     """
     is_match, col_op, valid = _column_compare(
         pool, lens, qpos0, tpos0, rev, col_off, n_cols, c_pad)

@@ -22,13 +22,10 @@ from paffy_tpu.core.segsum import segment_ids_from_offsets
 
 
 # Sequence-pool layout constants shared by the compare kernels: W-column
-# chunking (tiled kernel row width) and guard bytes so chunk windows never
-# index outside the pool.  Wider rows gather faster per byte on TPU
-# (measured: ~6 GB/s at 256B rows vs ~12 GB/s at 1KB rows).
+# chunking (tiled kernel row width) and guard bytes at BOTH ends of every
+# pool, so the row-aligned chunk windows (which can start before a
+# sequence and overhang its end) never index outside the pool.
 POOL_W = 512
-# Guards at BOTH ends of every pool: the Pallas compare kernel
-# (ops/pallas_compare.py) DMAs a full 4096-byte piece window whose start can
-# precede a sequence (reverse pieces) and whose end can overhang it.
 POOL_GUARD = 4096
 
 
@@ -59,8 +56,7 @@ class MColumnBatch:
       col_off        — exclusive cumsum of lens (length n_mops_pad+1)
     ``rec_col_off`` maps record -> first column index ([n_records+1]): columns
     are laid out in record order, so per-record column reductions are a cumsum
-    + boundary gather (the TPU-friendly form — scatter-based segment sums with
-    1e8 update elements serialize on TPU).
+    + boundary gather, with no scatter.
     ``n_cols`` is the true column count; device tensors use ``n_cols_pad``.
     """
 

@@ -1,4 +1,4 @@
-"""Greedy tile-level assignment — the sequential sweep as a device scan.
+"""Greedy tile-level assignment.
 
 Reference: paffy tile (impl/paf_tile.c:36-93,156-178): records sorted
 best-first by (chain_score, score); per record, increment per-base coverage
@@ -6,9 +6,15 @@ counts of its aligned query bases, then set tile_level to the MEDIAN
 post-increment count over those bases (levels start at 1 because the record's
 own increment is counted); records with no aligned bases get INT16_MAX.
 
-The sweep is inherently sequential across records (counts mutate between
-records) but fully parallel within a record — exactly the shape of a
-``lax.scan`` whose carry is the coverage array in HBM:
+The sweep is sequential across records (counts mutate between records).
+Single-device tiling runs it on the host (_assign_tile_levels_host, a
+native C pass): as a device ``lax.scan`` each record is one step of a few
+dependent kernels, and on an NVIDIA H100 (400 W limit) the scan took
+31.0 s for the 185k-record shattered golden workload against 0.50 s for
+the native sweep (chip_smoke.py).
+
+The device scan (ops/tile_device) serves the sharded pipeline, where
+coverage SEGMENTS ride the mesh's data axis:
 
   carry  = one uint16 count array (the reference's SequenceCountArray dtype,
            inc/paf.h:218) over a SEGMENT of query sequences
@@ -16,22 +22,18 @@ records) but fully parallel within a record — exactly the shape of a
            aligned-base mask from its run intervals (scatter +/-1, cumsum),
            add, binary-search the masked-count median, write back.
 
-Memory model: records only interact through same-sequence counts, so distinct
-query sequences commute and the coverage space is bin-packed into carry
-SEGMENTS of at most TILE_SEGMENT_BASES (2 bytes/base on device) — one scan per
-segment, all padded to one shared shape (one compile).  A sequence longer
-than the segment target gets its own segment sized to the sequence — the same
-footprint the reference's per-sequence calloc pays (impl/paf.c:675-688).
-
-Every step is O(span-bucket) vector work; XLA fuses mask-build + add +
-histogram into a handful of HBM passes.  Batches whose [N, K] run-interval
-tensor would blow up on one pathological record (K > TILE_K_CAP runs) route
-to an exact host sweep instead.
+Records only interact through same-sequence counts, so distinct query
+sequences commute and the coverage space is bin-packed into carry SEGMENTS
+of at most TILE_SEGMENT_BASES (2 bytes/base on device), all padded to one
+shared shape (one compile).  A sequence longer than the segment target gets
+its own segment sized to the sequence — the same footprint the reference's
+per-sequence calloc pays (impl/paf.c:675-688).  Batches whose [N, K]
+run-interval tensor would blow up on one pathological record (K >
+TILE_K_CAP runs), or whose predicted scan work exceeds TILE_DEVICE_WORK_CAP,
+take the host sweep instead.
 """
 
 from __future__ import annotations
-
-from functools import partial
 
 import numpy as np
 
@@ -41,13 +43,11 @@ from paffy_tpu.ops.segments import bucket_size
 
 TILE_SEGMENT_BASES = 1 << 26   # carry bin target: 64M bases = 128 MB uint16
 TILE_K_CAP = 2048              # device cap on padded runs-per-record
-# Device budget per segment scan in element-passes (~steps x span_b x
+# Device budget of the sharded scan in element-passes (~steps x span_b x
 # passes-per-step): one whole-chromosome-span record inflates EVERY step's
-# dynamic slice and each median probe scans the full window, so a segment
-# whose predicted work exceeds this routes to the exact host sweep instead
-# (same semantics; segments commute).  2^36 keeps the 125M-column golden
-# workload on device (~3e10) while a 1000-record segment with one 50 Mb-span
-# record (~1e12) goes host.
+# dynamic slice and each median probe scans the full window, so a batch
+# whose predicted work exceeds this takes the host sweep instead (same
+# semantics).
 TILE_DEVICE_WORK_CAP = 1 << 36
 # test hook: force the numpy reference sweep in _assign_tile_levels_host
 FORCE_HOST_NUMPY = False
@@ -141,60 +141,17 @@ def assign_tile_levels(t: PafTable, order: np.ndarray) -> np.ndarray:
     Returns levels aligned to the original record indexing of ``t``.
     """
     n = len(t)
-    levels = np.full(n, EMPTY_TILE_LEVEL, dtype=np.int64)
     if n == 0:
-        return levels
-
+        return np.full(n, EMPTY_TILE_LEVEL, dtype=np.int64)
     rec, istart, iend = match_intervals(t)
-    runs_per_rec = np.zeros(n, dtype=np.int64)
-    np.add.at(runs_per_rec, rec, 1)
-    k_b = bucket_size(max(int(runs_per_rec.max(initial=0)), 1), minimum=8)
-    if k_b > TILE_K_CAP:
-        # pathological runs-per-record would inflate every [N, K] row —
-        # exact host sweep instead (same semantics, measured vs oracle)
-        return _assign_tile_levels_host(t, order, rec, istart, iend)
-
-    seg_of, off_in, seg_sizes = _sequence_offsets(t)
-    # carry size is shared across segment scans (one compile per span
-    # bucket), rounded linearly (1M steps) — power-of-two bucketing would
-    # double the carry for a just-over-a-power segment
-    total_b = max(-(-max(seg_sizes) // (1 << 20)) * (1 << 20), 1 << 16)
-
-    seg_of_rec = np.array([seg_of[t.qname[i]] for i in range(n)],
-                          dtype=np.int64)
-    qoff = np.array([off_in[t.qname[i]] for i in range(n)], dtype=np.int64)
-    starts_all = qoff + t.qstart
-    lmax = min(bucket_size(n + 2, minimum=64), 32768)
-
-    for s in range(len(seg_sizes)):
-        sub = order[seg_of_rec[order] == s]
-        if len(sub) == 0:
-            continue
-        # span is PER SEGMENT: one whole-chromosome record no longer
-        # inflates every other segment's dynamic slices (compile count
-        # stays bounded by the power-of-two span buckets)
-        span_s = int(np.max(t.qend[sub] - t.qstart[sub]))
-        span_b = bucket_size(max(span_s, 1), minimum=128)
-        if _scan_work(len(sub), span_b, lmax) > TILE_DEVICE_WORK_CAP:
-            host = _assign_tile_levels_host(t, sub, rec, istart, iend)
-            levels[sub] = host[sub]
-            continue
-        iv_s, iv_e = _pack_intervals(sub, n, rec, istart, iend, t.qstart,
-                                     span_b, k_b)
-        from paffy_tpu.ops.tile_device import _tile_scan
-        import jax.numpy as jnp
-        lv = _tile_scan(jnp.asarray(starts_all[sub]), jnp.asarray(iv_s),
-                        jnp.asarray(iv_e), span=span_b, lmax=lmax,
-                        total=total_b)
-        levels[sub] = np.asarray(lv)
-    return levels
+    return _assign_tile_levels_host(t, order, rec, istart, iend)
 
 
 def assign_tile_levels_sharded(t: PafTable, order: np.ndarray,
                                mesh=None) -> np.ndarray:
-    """assign_tile_levels with all coverage segments stacked into one
-    batched scan ([S, N, ...]), optionally sharded over ``mesh``'s ``data``
-    axis.  Identical levels to the sequential per-segment path (tested)."""
+    """assign_tile_levels as one device scan with all coverage segments
+    stacked ([S, N, ...]), optionally sharded over ``mesh``'s ``data`` axis.
+    Identical levels to the host sweep (tested)."""
     import jax as _jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -217,13 +174,12 @@ def assign_tile_levels_sharded(t: PafTable, order: np.ndarray,
                           dtype=np.int64)
     lmax = min(bucket_size(n + 2, minimum=64), 32768)
     # the stacked scan shares one (batch-global) span across segments; when
-    # a long-span record would blow the work budget, fall back to the
-    # sequential path, which uses per-segment spans and host-routes the
-    # pathological segment (identical levels either way)
+    # a long-span record would blow the work budget, take the host sweep
+    # (identical levels either way)
     seg_counts = np.bincount(seg_of_rec, minlength=len(seg_sizes))
     if _scan_work(int(seg_counts.max(initial=0)), span_b,
                   lmax) > TILE_DEVICE_WORK_CAP:
-        return assign_tile_levels(t, order)
+        return _assign_tile_levels_host(t, order, rec, istart, iend)
     qoff = np.array([off_in[t.qname[i]] for i in range(n)], dtype=np.int64)
     starts_all = qoff + t.qstart
 
@@ -261,8 +217,8 @@ def assign_tile_levels_sharded(t: PafTable, order: np.ndarray,
 
 def _assign_tile_levels_host(t: PafTable, order: np.ndarray,
                              rec, istart, iend) -> np.ndarray:
-    """Exact host sweep — the route for batches over TILE_K_CAP or the
-    device work budget.
+    """Exact host sweep — the single-device route, and the sharded route's
+    fallback for batches over TILE_K_CAP or the device work budget.
 
     Counts are stored saturated (uint16, as the reference does); the median
     is the (total+1)//2-th smallest masked count, equal to the smallest L

@@ -46,8 +46,8 @@ def _tile_scan(starts, iv_start, iv_end, span, lmax, total):
         matches = jnp.sum(mask, dtype=jnp.int32)
         # median: smallest level L with |{masked bases with count <= L}| >=
         # matches/2.0 (impl/paf_tile.c:81-89, float compare as in C).
-        # Binary search over the level range — a scatter histogram over the
-        # window would serialize on TPU.
+        # Binary search over the level range: a few dense passes instead of
+        # a scatter histogram over the window.
         half = matches.astype(jnp.float64) / 2.0
         mask_b = mask > 0
 

@@ -1,8 +1,8 @@
 """Multi-chip sharded execution of the per-column pipeline.
 
 The reference's parallelism is shell-level: split per contig, run pipelines
-per shard, cat the results (SURVEY.md section 2.6).  The TPU-native
-equivalent is a device mesh with two axes:
+per shard, cat the results (SURVEY.md section 2.6).  The JAX equivalent is
+a device mesh with two axes:
 
   * ``data`` — record shards (the split_file axis): each group of records
     gets its own chunk-grid expansion; groups are laid out on the leading
@@ -18,11 +18,10 @@ let XLA place collectives).  No model-parallel machinery is invented: a PAF
 engine has no tensors to TP/PP/EP-shard (SURVEY.md section 2.6 P7); DP over
 records + column sharding is the complete story.
 
-The per-group compare kernel is the same lane-aligned tiled formulation as
-the single-chip fast path (ops/tiled.py): pool-row-aligned chunks, row
+The per-group compare kernel is the same row-aligned tiled formulation as
+the single-device path (ops/tiled.py): pool-row-aligned chunks, row
 gathers from the extended pool, phase-view query windows — batched over a
-leading group axis.  The naive per-column element-gather formulation this
-replaced ran ~30x slower on TPU (docs/PERF_NOTES.md).
+leading group axis.
 """
 
 from __future__ import annotations
@@ -87,8 +86,8 @@ class ShardedChunkBatch:
 def shard_records(t: PafTable, pool: SequencePool,
                   n_groups: int) -> ShardedChunkBatch:
     """Split a batch into ``n_groups`` contiguous record groups and build a
-    rectangular stacked chunk grid (the host-side sharding step; on a pod
-    each host builds only its own groups)."""
+    rectangular stacked chunk grid (the host-side sharding step; on several
+    hosts each builds only its own groups)."""
     n = len(t)
     pool_len = int(pool.pool.shape[0])
     bounds = np.linspace(0, n, n_groups + 1).astype(np.int64)
@@ -132,7 +131,7 @@ def _batched_group_tiled_stats(ext2d, views, trow, qwin_lo, lane_a, lane_b,
     per-base work splits across both mesh axes and XLA inserts the cross-seq
     reductions for the group cumsums and the global totals.  Per-record
     reduction is a per-group cumsum + gather at record chunk boundaries
-    (scatter segment-sums over the chunk axis serialize on TPU).
+    (no scatter over the chunk axis).
     """
     def constrain(x):
         return x if col_spec is None else \

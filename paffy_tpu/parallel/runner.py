@@ -10,8 +10,8 @@ shard runs the fused pipeline stages as pure functions over its batch, and
 shard outputs concatenate in deterministic group order — byte-identical to a
 sequential per-group run.
 
-On a multi-host pod each host executes its own shards (the data axis);
-within a shard the per-column work runs on that host's chips.  The
+On several hosts each host executes its own shards (the data axis);
+within a shard the per-column work runs on that host's devices.  The
 stage-level contract (what each stage computes) is identical to the
 single-process commands, so the shell tests' oracles apply unchanged.
 """
@@ -128,7 +128,7 @@ def run_pipeline(t: PafTable, seqs: dict[str, str], n_shards: int = 1,
     lengths = [int((t.qlen if by_query else t.tlen)[g[0]]) for g in groups]
     shards = assign_shards(groups, lengths, n_shards)
 
-    # process shards (on a pod: one per host); keep outputs per group so the
+    # process shards (on several hosts: one per host); keep outputs per group so the
     # final order is group order regardless of shard assignment
     out_by_group: dict[int, PafTable] = {}
 

@@ -4,7 +4,8 @@ two-pass FASTA pool loader.
 
 Each fast path's oracle is the pre-existing slow form (numpy fallback or
 parsed mode); the reference-diff suite (test_reference_diff*.py) covers
-end-to-end parity with the compiled reference binary.
+end-to-end parity with the compiled reference binary.  The input is the
+seeded golden-shaped workload of goldenwork.py.
 """
 
 import io
@@ -18,16 +19,15 @@ from paffy_tpu.core.fasta import (fasta_pool_from_bytes, load_sequences,
                                   pack_sequences, read_fasta)
 from paffy_tpu.ops import coverage
 
-GOLDEN = "/root/reference/tests/human_chimp.paf"
-
 needs_native = pytest.mark.skipif(native.get_lib() is None,
                                   reason="no native toolchain")
 
 
 @pytest.fixture(scope="module")
 def golden_bytes() -> bytes:
-    with open(GOLDEN, "rb") as fh:
-        return fh.read()
+    """The seeded golden-shaped PAF (207 records) at 5% of its length."""
+    from goldenwork import golden_paf
+    return golden_paf(scale=0.05)
 
 
 # ------------------------------------------------------------ raw-cigar mode

@@ -234,28 +234,10 @@ def test_tiled_exact_chunk_boundaries(monkeypatch):
             assert got == expect, f"len {ln} strand {strand}"
 
 
-def test_pallas_piece_kernel_interpret():
-    # the DMA-gather Pallas kernel (ops/pallas_compare), interpret mode
-    from paffy_tpu.ops import mismatch as mm
-    from paffy_tpu.ops.pallas_compare import pallas_match_counts
-    from paffy_tpu.ops.segments import build_m_column_batch
-    import synthdata
-    from paffy_tpu.core.pafio import parse_paf_text
-    seqs, lines = synthdata.make_workload(seed=31, length=20000, n_windows=30,
-                                          window=2500, step=600)
-    t = parse_paf_text("\n".join(lines) + "\n")
-    pool = mm.SequencePool(seqs)
-    m0, x0 = mm.column_match_counts(t, pool)
-    b = build_m_column_batch(t, pool.offsets_for(t.qname, "query"),
-                             pool.offsets_for(t.tname, "target"))
-    m1, x1 = pallas_match_counts(pool.pool, b, len(t), interpret=True)
-    assert np.array_equal(m0, m1) and np.array_equal(x0, x1)
-
-
 def test_hot_kernels_trace_no_int64():
     # regression guard: under x64, an unpinned jnp.sum(int32) promotes to
-    # int64, and an int64 (u32-pair) cumsum inside a loop body blows scoped
-    # VMEM on TPU (docs/PERF_NOTES.md) — assert the hot kernels stay int32
+    # int64 and doubles the bytes of every per-chunk reduction — assert the
+    # hot kernels stay int32
     import jax
     import jax.numpy as jnp
     from paffy_tpu.ops import mismatch as mm
@@ -384,29 +366,3 @@ def test_naive_device_counts_still_exact(monkeypatch):
     monkeypatch.setattr(mm, "FORCE_DEVICE", True)
     m1, x1 = mm.column_match_counts(t, pool)           # naive device kernel
     assert np.array_equal(m0, m1) and np.array_equal(x0, x1)
-
-
-def test_res_grouped_kernel_matches_flat(monkeypatch):
-    # the residual-grouped 2-bit kernel (no roll chain) must equal the flat
-    # kernel exactly on an arbitrary workload
-    import paffy_tpu.ops.tiled as tiled
-    from paffy_tpu.ops.mismatch import SequencePool
-    from paffy_tpu.ops.segments import build_m_column_batch
-    from synthdata import make_workload
-    from paffy_tpu.core.pafio import parse_paf_text
-
-    seqs, lines = make_workload(seed=21, length=30_000, n_windows=40,
-                                window=3_000, step=700)
-    t = parse_paf_text("\n".join(lines) + "\n")
-    pool = SequencePool(seqs)
-    qoff = pool.offsets_for(t.qname, "query")
-    toff = pool.offsets_for(t.tname, "target")
-    b = build_m_column_batch(t, qoff, toff)
-    packed2d, pviews = pool.packed2
-    plen = int(pool.pool.shape[0])
-
-    m1, x1 = tiled.packed2_match_counts(packed2d, pviews, b, len(t), plen)
-    monkeypatch.setattr(tiled, "RES_GROUP_FORCE", True)
-    m2, x2 = tiled.packed2_match_counts(packed2d, pviews, b, len(t), plen)
-    assert np.array_equal(m1, m2)
-    assert np.array_equal(x1, x2)

@@ -2,8 +2,8 @@
 ``jax.distributed`` (localhost coordinator, CPU backend, 4 virtual devices
 each) running ``run_pipeline_multihost`` over a multi-contig workload.
 
-This is the TPU-native form of the reference's concurrently-running shard
-processes (/root/reference/tests/paf_pipeline_test.sh:50-71): shards are
+This is the JAX form of the reference's concurrently-running shard
+processes (its tests/paf_pipeline_test.sh:50-71): shards are
 executed round-robin over processes, each shard's output is an atomically
 written file, and process 0 concatenates in deterministic group order.
 Asserted here:

@@ -124,22 +124,36 @@ def test_threaded_counts_match_single_thread(workload):
 
 
 def test_counts_routing_prediction(monkeypatch):
-    """The e2e router picks native on slow links and the device on fast
-    ones, and always native when no accelerator is present."""
+    """The e2e router follows the rates measured on an H100 host: at the
+    16x golden size a fresh process stays native (the device set-up
+    outweighs the per-batch gain), a process whose pool is already on the
+    card takes the device, small batches stay native on dispatch cost, and
+    without an accelerator the route is always native."""
+    import os
     from types import SimpleNamespace
     from paffy_tpu.ops import mismatch
 
-    b = SimpleNamespace(n_cols=125_000_000, n_mops=185_000)
-    # no accelerator (default in this test env): native regardless of bw
-    assert not mismatch.device_counts_predicted_faster(b)
-    # accelerator behind a ~11 MB/s tunnel: upload dominates -> native
-    monkeypatch.setattr(mismatch, "_compute_platform", lambda: "tpu")
-    monkeypatch.setattr(mismatch, "_transfer_bw", 11e6)
-    assert not mismatch.device_counts_predicted_faster(b)
-    # PCIe-attached accelerator: device kernel wins at this size
-    monkeypatch.setattr(mismatch, "_transfer_bw", 10e9)
+    monkeypatch.setattr(os, "cpu_count", lambda: 16)
     big = SimpleNamespace(n_cols=2_000_000_000, n_mops=3_000_000)
-    assert mismatch.device_counts_predicted_faster(big)
+    # no accelerator (default in this test env): native regardless of rates
+    assert not mismatch.device_counts_predicted_faster(big,
+                                                       pool_on_device=True)
+
+    def no_platform_query():
+        raise AssertionError("platform queried although native wins")
+
+    # rates favour native: decided without importing JAX
+    monkeypatch.setattr(mismatch, "_compute_platform", no_platform_query)
+    assert not mismatch.device_counts_predicted_faster(big)
+    small = SimpleNamespace(n_cols=1_000_000, n_mops=2_000)
+    assert not mismatch.device_counts_predicted_faster(small,
+                                                       pool_on_device=True)
+    monkeypatch.setattr(mismatch, "_compute_platform", lambda: "gpu")
+    assert mismatch.device_counts_predicted_faster(big, pool_on_device=True)
+    huge = SimpleNamespace(n_cols=100_000_000_000, n_mops=150_000_000)
+    assert mismatch.device_counts_predicted_faster(huge)
+    assert not mismatch.device_route_wins(big.n_cols)
+    assert mismatch.device_route_wins(huge.n_cols)
 
 
 def test_native_chain_dp_matches_numpy():

@@ -1,5 +1,5 @@
-"""True differential gate: the REFERENCE binaries, compiled from
-/root/reference against the sonLib shim (tools/refbuild/), run the exact
+"""True differential gate: the REFERENCE binaries, compiled from the
+reference source tree against the sonLib shim (tools/refbuild/), run the exact
 invocation matrix of tests/test_golden_snapshots.py, and their output
 sha256s must match tests/golden_hashes.json.
 
@@ -8,8 +8,8 @@ hashes, so the two suites together assert byte-for-byte parity between this
 framework and the compiled reference on every command — chain tiebreaks
 (impl/chaining.c:17-20,47-49), tile tie ordering (impl/paf_tile.c:28-34,
 157,178), trim arithmetic, tag emission (impl/paf.c:343-389), BED
-compression, chunk packing.  The hashes are thereby reference-anchored, not
-self-referential (VERDICT r2 missing #2).
+compression, chunk packing.  The hashes are thereby reference-anchored
+wherever the reference tree is present.
 
 Where real sonLib behavior is implementation-defined the shim makes a
 documented deterministic choice (stHash iteration = insertion order,
@@ -31,7 +31,7 @@ import pytest
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent
                        / "tools" / "refbuild"))
 from build import build_reference  # noqa: E402
-from goldenwork import renamed_golden_text, synth_golden_seqs  # noqa: E402
+from goldenwork import write_workspace  # noqa: E402
 
 HASHES = json.loads(
     (pathlib.Path(__file__).parent / "golden_hashes.json").read_text())
@@ -47,25 +47,12 @@ def ref():
 
 
 @pytest.fixture(scope="module")
-def env(tmp_path_factory, golden_paf_path):
-    """Same workspace as test_golden_snapshots.env (golden.paf, normalized
-    renamed.paf, synthesized seqs.fa)."""
-    from paffy_tpu.core import pafio
-    d = tmp_path_factory.mktemp("refdiff")
-    golden = d / "golden.paf"
-    golden.write_bytes(golden_paf_path.read_bytes())
-    renamed = d / "renamed.paf"
-    renamed.write_text(pafio.serialize_paf(
-        pafio.parse_paf_text(renamed_golden_text())))
-    seqs = synth_golden_seqs()
-    if not seqs:
+def env(tmp_path_factory):
+    """Same workspace as test_golden_snapshots.env."""
+    ws = write_workspace(tmp_path_factory.mktemp("refdiff"))
+    if ws is None:
         pytest.skip("native toolchain unavailable; cannot synthesize FASTA")
-    fasta = d / "seqs.fa"
-    with open(fasta, "w") as fh:
-        for nm, s in seqs.items():
-            fh.write(f">{nm}\n{s}\n")
-    return {"dir": d, "golden": str(golden), "renamed": str(renamed),
-            "fasta": str(fasta)}
+    return ws
 
 
 def run_ref(binary, *argv, out: pathlib.Path | None = None,
@@ -224,7 +211,7 @@ def test_ref_split_file(ref, env, tmp_path):
 def ref_chunks(ref, env, tmp_path_factory):
     d = tmp_path_factory.mktemp("refchunks")
     listing = run_ref(ref["faffy"], "chunk", env["fasta"], "-d",
-                      str(d / "out"), "-c", "30000000", "-o", "100000")
+                      str(d / "out"), "-c", "600000", "-o", "2000")
     files = [line for line in listing.decode().splitlines() if line.strip()]
     return {"dir": d, "files": files}
 
@@ -233,7 +220,7 @@ def test_ref_faffy_chunk(ref_chunks):
     blob = b"".join(pathlib.Path(f).name.encode() + b"\0"
                     + pathlib.Path(f).read_bytes()
                     for f in ref_chunks["files"])
-    check("faffy_chunk/c30M_o100k", blob)
+    check("faffy_chunk/c600k_o2k", blob)
 
 
 def test_ref_faffy_merge(ref, ref_chunks, tmp_path):

@@ -5,7 +5,8 @@ import numpy as np
 
 from paffy_tpu.core.model import MATCH, QUERY_INSERT, QUERY_DELETE
 from paffy_tpu.core.pafio import parse_paf_text
-from paffy_tpu.ops.tile import assign_tile_levels, tile_sort_order
+from paffy_tpu.ops.tile import (assign_tile_levels, assign_tile_levels_sharded,
+                                tile_sort_order)
 from paffy_tpu.ops.coverage import EMPTY_TILE_LEVEL, CoverageMap, run_length_rows
 
 
@@ -134,10 +135,12 @@ def test_random_against_oracle():
     got = assign_tile_levels(t, order)
     expect = _oracle(t, order)
     assert list(got) == list(expect)
+    assert list(assign_tile_levels_sharded(t, order)) == list(expect)
 
 
 def test_segmented_carries_match_single_segment(monkeypatch):
-    # force one sequence per segment: identical levels to the packed run
+    # device scan, forced to one sequence per segment: identical levels to
+    # the packed run
     import paffy_tpu.ops.tile as tile_mod
     rng = np.random.default_rng(5)
     recs = []
@@ -149,15 +152,16 @@ def test_segmented_carries_match_single_segment(monkeypatch):
                      int(rng.integers(0, 500)), None, f"{ln}M"))
     t = mk(recs)
     order = tile_sort_order(t)
-    packed = assign_tile_levels(t, order)
+    packed = assign_tile_levels_sharded(t, order)
     monkeypatch.setattr(tile_mod, "TILE_SEGMENT_BASES", 1)  # 1 seq/segment
-    split = assign_tile_levels(t, order)
+    split = assign_tile_levels_sharded(t, order)
     assert list(split) == list(packed)
     assert list(split) == list(_oracle(t, order))
 
 
 def test_k_cap_host_fallback(monkeypatch):
-    # batches over the runs-per-record cap take the host sweep — identical
+    # device-scan batches over the runs-per-record cap take the host
+    # sweep — identical
     import paffy_tpu.ops.tile as tile_mod
     rng = np.random.default_rng(7)
     recs = []
@@ -178,9 +182,9 @@ def test_k_cap_host_fallback(monkeypatch):
             int(rng.integers(0, 500)), None, "".join(parts)))
     t = mk(recs)
     order = tile_sort_order(t)
-    device = assign_tile_levels(t, order)
+    device = assign_tile_levels_sharded(t, order)
     monkeypatch.setattr(tile_mod, "TILE_K_CAP", 1)
-    host = assign_tile_levels(t, order)
+    host = assign_tile_levels_sharded(t, order)
     assert list(host) == list(device)
     assert list(host) == list(_oracle(t, order))
 
@@ -214,10 +218,10 @@ def test_coverage_map_and_rle():
 
 
 def test_span_hazard_routes_to_host(monkeypatch):
-    """A segment whose predicted scan work (one long-span record inflating
-    every step's window) exceeds TILE_DEVICE_WORK_CAP routes to the exact
-    host sweep; other segments stay on the device with their OWN span
-    bucket.  Levels identical either way."""
+    """A batch whose predicted device-scan work (one long-span record
+    inflating every step's window) exceeds TILE_DEVICE_WORK_CAP takes the
+    exact host sweep; under the cap the device scan runs.  Levels identical
+    either way."""
     import paffy_tpu.ops.tile as tile_mod
 
     # seq A: one 50k-span record + small records; seq B: small records only
@@ -233,7 +237,7 @@ def test_span_hazard_routes_to_host(monkeypatch):
                      f"\t200\t200\t60\tAS:i:{400-i}\tcg:Z:200M")
     t = parse_paf_text("\n".join(lines) + "\n")
     order = tile_sort_order(t)
-    expected = assign_tile_levels(t, order)          # all-device reference
+    expected = assign_tile_levels(t, order)          # host sweep
 
     calls = {"host": 0}
     orig = tile_mod._assign_tile_levels_host
@@ -243,17 +247,10 @@ def test_span_hazard_routes_to_host(monkeypatch):
         return orig(*a, **k)
 
     monkeypatch.setattr(tile_mod, "_assign_tile_levels_host", spy)
-    # cap low enough that seq A's segment (span 50k) must go host while
-    # seq B's (span 200 -> its own per-segment bucket) stays device
+    assert list(assign_tile_levels_sharded(t, order)) == list(expected)
+    assert calls["host"] == 0, "under the cap the device scan runs"
+    # cap below the 50k-span batch's predicted work: host sweep
     monkeypatch.setattr(tile_mod, "TILE_DEVICE_WORK_CAP",
                         tile_mod._scan_work(7, 4096, 64))
-    # force A and B into separate segments so the spans don't share
-    monkeypatch.setattr(tile_mod, "TILE_SEGMENT_BASES", qlen)
-    routed = assign_tile_levels(t, order)
-    assert calls["host"] == 1, "exactly the hazardous segment routes host"
-    assert list(routed) == list(expected)
-
-    # the sharded entry falls back to the sequential path under the cap
-    from paffy_tpu.ops.tile import assign_tile_levels_sharded
-    sharded = assign_tile_levels_sharded(t, order)
-    assert list(sharded) == list(expected)
+    assert list(assign_tile_levels_sharded(t, order)) == list(expected)
+    assert calls["host"] == 1, "the hazardous batch routes host"

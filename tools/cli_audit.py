@@ -2,10 +2,9 @@
 reference binary on an N-fold golden workload, asserting byte-identical
 output.
 
-Methodology (docs/PERF_NOTES.md "interleaved e2e timing"): this host is a
-shared 2-vCPU VM whose available bandwidth swings minute to minute, so the
-two binaries are timed INTERLEAVED (ref, ours, ref, ours, ...) and the
-min over iterations is reported for each.  Commands run with
+Methodology: a shared host's available bandwidth can swing minute to
+minute, so the two binaries are timed INTERLEAVED (ref, ours, ref, ours,
+...) and the min over iterations is reported for each.  Commands run with
 PAFFY_TPU_PLATFORM=cpu (the host production routes; device routing is
 bench.py's job).
 
@@ -133,13 +132,14 @@ def main(argv=None) -> int:
     ours = str(repo / "bin" / "paffy")
 
     tmp = pathlib.Path(tempfile.mkdtemp(prefix="cli_audit_"))
-    # the renamed-golden workload + deterministic synthesized FASTA from
-    # tests/goldenwork (same fixture the snapshot/diff suites use)
-    from tests.goldenwork import renamed_golden_text, synth_golden_seqs
-    text = renamed_golden_text()
+    # the seeded golden-shaped workload + its synthesized FASTA from
+    # tests/goldenwork (the generator the snapshot/diff suites use)
+    from paffy_tpu.core import pafio
+    from tests.goldenwork import golden_paf, pool_seqs, synth_pool
+    text = golden_paf().decode()
     work = tmp / f"g{args.fold}.paf"
     work.write_bytes(text.encode() * args.fold)
-    seqs = synth_golden_seqs()
+    seqs = pool_seqs(*synth_pool(pafio.parse_paf_text(text)))
     fa = tmp / "seqs.fa"
     with open(fa, "w") as fh:
         for nm, s in seqs.items():
